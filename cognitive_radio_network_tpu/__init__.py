@@ -1,8 +1,8 @@
-"""cognitive_radio_network_tpu — a TPU-native cognitive-radio sensing framework.
+"""cognitive_radio_network_tpu — a cognitive-radio sensing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas/pjit rebuild of the capabilities of
 ``0xastro/Cognitive-Radio-Network`` (CRTS + liquid-dsp + UHD, C++), redesigned
-TPU-first:
+for batched accelerator execution (one NVIDIA GPU, or a mesh of them):
 
 * the per-sample C++ DSP hot loops (liquid ofdmflexframe sync, FFT sensing,
   ANN inference — reference src/extensible_cognitive_radio.cpp:1258-1382,
@@ -14,13 +14,13 @@ TPU-first:
   becomes a host-Python orchestration layer (:mod:`.runtime`) over shards of
   one pjit-ed program;
 * scale-out is via ``jax.sharding`` meshes with ``ppermute`` overlap-save halo
-  exchange and ``psum`` spectrum reductions (:mod:`.parallel`), not NCCL/MPI.
+  exchange and ``psum`` spectrum reductions (:mod:`.parallel`), which XLA hands to NCCL.
 
 Subpackages
 -----------
 signal    numerics core: windowed FFT power spectrum, band energies, energy
           detector, occupancy MLP, PRBS m-sequences, filter design
-ops       Pallas TPU kernels for the hot paths (fused sense, streaming FIR)
+ops       the fused sense kernel (Pallas, GPU) and window extraction
 phy       OFDM link: CRC, FEC, modem, subcarrier allocation, frame gen/sync
 env       synthetic RF environment: Markov/random PU, interferer waveforms,
           AWGN channels, scene composition

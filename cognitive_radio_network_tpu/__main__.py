@@ -127,15 +127,9 @@ def _cmd_sense(args) -> int:
 
 
 def main(argv=None) -> int:
-    import os
+    from cognitive_radio_network_tpu.utils.platform import enable_compile_cache
 
-    # Some site configurations register a TPU backend through jax.config,
-    # which silently overrides the JAX_PLATFORMS env var; re-assert it so
-    # `JAX_PLATFORMS=cpu python -m cognitive_radio_network_tpu ...` behaves.
-    if os.environ.get("JAX_PLATFORMS"):
-        import jax
-
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
+    enable_compile_cache()
 
     ap = argparse.ArgumentParser(prog="cognitive_radio_network_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -220,7 +214,7 @@ def main(argv=None) -> int:
     sn = sub.add_parser(
         "sense",
         help="stream a recorded IQ capture through the fused sense->classify "
-        "pipeline (native prefetcher -> planar ingest -> TPU kernel)",
+        "pipeline (native prefetcher -> planar ingest -> device)",
     )
     sn.add_argument("capture", help="raw interleaved f32 I/Q file (io.IQWriter)")
     sn.add_argument("-o", "--out", default=None, help="save results .npz")

@@ -12,7 +12,7 @@ Sense->classify loop of cognitive_engines/CE_Predictive_Node/CE_Predictive_Node.
 Here steps (3)-(5) are ONE fused jitted graph (models.sense.sense_classify)
 executed once per completed averaging cycle — the per-buffer FFT work is
 batched instead of incremental, trading the reference's per-buffer CPU FFT
-for one TPU dispatch per cycle.
+for one device dispatch per cycle.
 """
 
 from __future__ import annotations
@@ -56,10 +56,9 @@ class CEPredictiveNode(CognitiveEngine):
             )
         # params stay HOST numpy: the engine is constructed outside the
         # scenario's phy-placement context, so jax-array params would
-        # commit to the ambient (TPU) device and every sense call would
-        # fetch them across the interconnect — measured 110 ms per
-        # 100 ms-cadence classify, i.e. the whole sensing budget — while
-        # numpy params follow the active device for free
+        # commit to the default device and every sense call under "host"
+        # placement would copy them back across, while numpy params follow
+        # the active device for free
         import jax as _jax
 
         self.params = _jax.tree.map(np.asarray, self.params)

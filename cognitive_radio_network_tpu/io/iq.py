@@ -112,7 +112,7 @@ class IQReader:
         """Like :meth:`blocks`, but through the native prefetching stream
         (mmap + slab ring + background reader thread, native/src/iq_stream.cpp)
         when the C++ library is available, so the consumer — typically the
-        host loop feeding the TPU — never blocks on file I/O.  Falls back to
+        host loop feeding the device — never blocks on file I/O.  Falls back to
         the synchronous Python reader.  Keeps ``self.cursor`` resumable."""
         from cognitive_radio_network_tpu import native
 

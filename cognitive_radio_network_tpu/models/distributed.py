@@ -12,7 +12,7 @@ The classifier is the 4-5-3-shaped sigmoid MLP applied per channel with
 shared weights over features [noise_floor, E_{k-1}, E_k, E_{k+1}] (the
 wideband generalization of CE_Predictive_Node's [NF, CH1, CH2, CH3] input,
 CE_Predictive_Node.cpp:200); output 0 is the channel-occupied probability.
-Parameters are replicated; pjit inserts the gradient psum over ICI.
+Parameters are replicated; pjit inserts the gradient psum.
 """
 
 from __future__ import annotations

@@ -1,21 +1,21 @@
 """The fused sense->classify pipeline (the framework's flagship model).
 
-This is the TPU-native re-design of the reference's entire per-node hot path —
+This is the accelerator re-design of the reference's entire per-node hot path —
 ``ECR_rx_worker``'s sample loop + ``CE_Predictive_Node::execute``'s
 FFT/feature/MLP chain (src/extensible_cognitive_radio.cpp:1258-1382;
 CE_Predictive_Node.cpp:127-289) — as ONE jitted batched graph:
 
-    IQ stream (C cycles x A buffers x N samples, complex64)
-      -> batched DFT (4 MXU matmuls)          [fft.spectrum_magnitude]
+    IQ stream (C cycles x A buffers x N samples, planar float32)
+      -> batched DFT (real-split matmuls)      [fft.spectrum_magnitude]
       -> magnitude average over A buffers      [fft.averaged_magnitude_spectrum]
-      -> band-energy features (MXU epilogue)   [bands.band_features]
+      -> band-energy features                  [bands.band_features]
       -> 4-5-3 sigmoid MLP                     [mlp.mlp_forward]
       -> occupancy decision + channel policy   [detector]
 
 Decisions per cycle are data-independent; only the tx-frequency trace carries
 cross-cycle state (the "else: keep sensing" branch), handled by a tiny
 ``lax.scan`` over scalar per-cycle decisions AFTER the heavy batched math, so
-nothing serializes the MXU work.
+nothing serializes the batched math.
 
 Cadence note: the reference senses 10 x 512-sample buffers every 100 ms and
 idles in between. The framework processes the same math back-to-back over
@@ -31,7 +31,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from cognitive_radio_network_tpu.utils.platform import effective_platform
+from cognitive_radio_network_tpu.utils.platform import sense_fft_mode
 
 from cognitive_radio_network_tpu.signal import bands as bands_mod
 from cognitive_radio_network_tpu.signal import detector as det
@@ -53,21 +53,19 @@ class SenseConfig:
     sample_rate_hz: float = 13e6
     center_hz: float = 833e6
     sensing_delay_ms: float = 100.0
-    # "ct_matmul": Cooley-Tukey N1 x 128 factored DFT (radix-N1 VPU stage +
-    # full-tile 128-pt MXU matmuls, ~4x fewer MXU flops — default);
-    # "dft_matmul": dense (N, N) DFT matmul; "xla": jnp.fft.
-    fft_mode: str = "ct_matmul"
-    # On TPU backends the ct_matmul spectrum+bands chain runs as one fused
-    # VMEM-resident Pallas kernel (ops/fused_sense_ct.py) — the pure-XLA
-    # factorization materializes every stage in HBM and is slower than the
-    # dense matmul. None = auto (TPU only); False forces the XLA graph.
-    use_fused_kernel: bool | None = None
+    # spectrum math (signal/fft.spectrum_magnitude): "ct_matmul"
+    # (Cooley-Tukey 4 x 128 factored DFT), "dft_matmul" (dense (N, N) DFT
+    # matmul) or "xla" (jnp.fft; cuFFT on a GPU).  None = the platform's
+    # choice, utils/platform.sense_fft_mode (GPU: cuFFT; CPU: ct_matmul).
+    fft_mode: str | None = None
     # input transform applied to band features before the MLP: "none" (the
     # reference's raw squared-sums, matching its shipped weights) or
     # "log1p" (what models/train.py trains with; checkpoints record which)
     feature_transform: str = "none"
-    # "highest" = true f32 matmuls (strict bit-match mode); "high" = bf16_3x
-    # (~5e-5 rel err, ~1.5x faster, default); "default" = bf16 (fastest).
+    # algorithm of the matmul DFT modes (signal/fft.matmul):
+    # "highest" = f32 products (strict bit-match mode); "high" = bf16_3x
+    # (~1e-5 relative error, default); "default" = one bf16 pass (~1e-2).
+    # The "xla" mode computes in f32 whatever the name.
     precision: str = "high"
 
     @property
@@ -80,50 +78,27 @@ def sense_classify(
 ):
     """Batched sense->classify over C cycles.
 
-    iq: planar tuple (xr, xi) each (C, A, N) — the preferred zero-relayout
-    layout (see signal/iq.py) — or complex64 (C, A, N), or interleaved
-    float32 planes (C, A, N, 2) / any flat shape reshapeable to them
-    (planes cost a strided de-interleave on TPU). Returns dict of
+    iq: planar tuple (xr, xi) each (C, A, N) or buffers-flat (C*A, N) —
+    the preferred layout (see signal/iq.py) — or complex64 (C, A, N), or
+    interleaved float32 planes (C, A, N, 2) / any flat shape reshapeable to
+    them (planes cost a de-interleave pass). Returns dict of
     per-cycle arrays:
       avg_spectrum (C, N), features (C, 4), outputs (C, 3), decision (C,).
     """
     n, a = cfg.fft_length, cfg.averaging
-    if isinstance(iq, (tuple, list)):  # planar (xr, xi) — the fast path
-        # keep buffers-flat 2D: reshaping to (C, A, N) on TPU is a physical
-        # relayout (A=10 tile-pads to 16) costing as much as the kernel
-        blocks = tuple(jnp.asarray(v, jnp.float32).reshape(-1, n) for v in iq)
+    if isinstance(iq, (tuple, list)):
+        blocks = tuple(jnp.asarray(v).reshape(-1, a, n) for v in iq)
     elif jnp.iscomplexobj(iq):
         blocks = iq.reshape(-1, a, n)
     else:
         blocks = iq.reshape(-1, a, n, 2)
-    use_fused = cfg.use_fused_kernel
-    if use_fused is None:
-        use_fused = (
-            cfg.fft_mode == "ct_matmul"
-            and n == 512
-            and effective_platform() not in ("cpu", "gpu")
-        )
-    if use_fused:
-        from cognitive_radio_network_tpu.ops.fused_sense_ct import fused_sense_ct
-
-        if not isinstance(blocks, tuple) and jnp.iscomplexobj(blocks):
-            blocks = (
-                jnp.real(blocks).astype(jnp.float32),
-                jnp.imag(blocks).astype(jnp.float32),
-            )
-        avg, feats = fused_sense_ct(
-            blocks, averaging=a, bands=cfg.bands, precision=cfg.precision
-        )
-    else:
-        if isinstance(blocks, tuple):
-            # planar -> planes for the XLA path (non-hot fallback)
-            blocks = jnp.stack(
-                [v.reshape(-1, a, n) for v in blocks], axis=-1
-            )
-        avg = fft_mod.averaged_magnitude_spectrum(
-            blocks, averaging=a, mode=cfg.fft_mode, precision=cfg.precision
-        )
-        feats = bands_mod.band_features(avg, cfg.bands)
+    avg = fft_mod.averaged_magnitude_spectrum(
+        blocks,
+        averaging=a,
+        mode=cfg.fft_mode or sense_fft_mode(n),
+        precision=cfg.precision,
+    )
+    feats = bands_mod.band_features(avg, cfg.bands)
     from cognitive_radio_network_tpu.signal.mlp import mlp_forward
 
     mlp_in = jnp.log1p(feats) if cfg.feature_transform == "log1p" else feats

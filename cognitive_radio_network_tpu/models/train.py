@@ -13,7 +13,7 @@ shardable pipeline instead:
 
 Data parallelism is expressed with sharding annotations under ``jax.jit``
 (pjit): batches sharded over the ``data`` mesh axis, parameters replicated,
-XLA inserting the gradient ``psum`` over ICI — not hand-written collectives.
+XLA inserting the gradient ``psum`` — not hand-written collectives.
 Checkpointing goes through :mod:`cognitive_radio_network_tpu.io.checkpoint`.
 """
 

@@ -4,7 +4,7 @@ The reference's runtime is C++ (ECR core, controller, nodes, logging —
 SURVEY.md §2.7); this package binds the framework's native equivalents:
 
 - :class:`NativeIQStream` — mmap'd recorded-IQ reader with a slab ring and a
-  background prefetch thread (the data loader feeding the TPU host loop).
+  background prefetch thread (the data loader feeding the device host loop).
 - :class:`BinLogWriter` / :class:`BinLogReader` — CRC-framed append-only
   binary record streams (the ``logs/bin`` role of the reference).
 - :class:`MsgTransport` — framed TCP control-plane transport (the raw-struct

@@ -1,12 +1,4 @@
-"""Pallas TPU kernels for the hot paths.
+"""Gather helpers for the hot paths.
 
-Benchmarked against the fused-by-XLA equivalents; as of v5e measurements the
-XLA path wins for the sense front-end (it pipelines the DFT matmuls across
-HBM better), so the kernels here serve as the explicit-VMEM implementations
-for configurations XLA fuses poorly, and as the substrate for future
-quantized variants.
+* :mod:`.extract` — dynamic-offset window extraction for the OFDM receive.
 """
-
-from cognitive_radio_network_tpu.ops.fused_sense import fused_band_features
-
-__all__ = ["fused_band_features"]

@@ -1,154 +1,27 @@
-"""Dynamic window extraction: contiguous DMA gather for frame-aligned slices.
+"""Dynamic window extraction for frame-aligned slices.
 
 The OFDM rx graphs need rows ``x[off_k : off_k + wlen]`` at K dynamic
-offsets (frame starts found by detection).  XLA lowers a fancy-index gather
-``x[offs[:, None] + arange(wlen)]`` on TPU to an element-at-a-time gather
-(~200 MB/s measured — 49 ms for 256x4864 f32, slower than the whole demod).
-Each row is CONTIGUOUS though, so the right lowering is one DMA per row.
-
-Mosaic constrains HBM slices to tile boundaries (1024 samples for 1-D f32,
-8 sublanes x 128 lanes viewed 2-D), so arbitrary sample offsets cannot be
-DMA'd directly.  The kernel instead:
-
-1. DMAs the 1024-ALIGNED slab covering [offset, offset + wlen) as rows of a
-   (N/128, 128) view of the stream — tile-aligned, full-bandwidth;
-2. realigns inside VMEM by the residual phase (0..1023) with dynamic 0/1
-   permutation matmuls on the MXU — a row shift, then a lane shift split
-   across the row boundary.  Mosaic has no strided vector slice and no
-   dynamic roll, but building a shift matrix from ``broadcasted_iota``
-   compares is fully supported, exact in f32, and tiny (R x R and 128 x 128).
-
-On non-TPU backends (CPU tests) a vmap'd ``lax.dynamic_slice`` is used —
-same semantics, no Mosaic dependency.
+offsets (frame starts found by detection).  Each row is contiguous, and a
+vmapped ``lax.dynamic_slice`` lowers to one gather of contiguous rows,
+which XLA:GPU turns into coalesced loads.
 
 Replaces the per-sample streaming buffer walk of liquid's
 ofdmflexframesync_execute (src/extensible_cognitive_radio.cpp:1307): the
 reference touches every sample once per frame search; here detection reads
-the stream once and decode DMAs exactly the frame windows.
+the stream once and decode reads exactly the frame windows.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = ["extract_windows"]
 
-_LANES = 128
-_ALIGN = 1024  # 1-D f32 tile: 8 sublanes x 128 lanes
 
-
-def _extract_kernel(
-    offs_ref,
-    src_r,
-    src_i,
-    out_r,
-    out_i,
-    slab_r,
-    slab_i,
-    sem,
-    *,
-    rows_out: int,
-    group: int,
-):
-    """Per grid step: DMA `group` aligned slabs (all copies in flight at
-    once, amortizing DMA latency), then realign each by its residual phase
-    with dynamic rolls (VPU) — a row roll, then a lane roll split across the
-    row boundary."""
-    i = pl.program_id(0)
-    rows_slab = rows_out + 8
-
-    def slab_copy(gg, plane_ref, slab, sem_slot):
-        o = offs_ref[i * group + gg]
-        row0 = pl.multiple_of(((o // _ALIGN) * _ALIGN) // _LANES, 8)
-        return pltpu.make_async_copy(
-            plane_ref.at[pl.ds(row0, rows_slab), :], slab.at[gg], sem_slot
-        )
-
-    for gg in range(group):
-        slab_copy(gg, src_r, slab_r, sem.at[gg, 0]).start()
-        slab_copy(gg, src_i, slab_i, sem.at[gg, 1]).start()
-    for gg in range(group):
-        slab_copy(gg, src_r, slab_r, sem.at[gg, 0]).wait()
-        slab_copy(gg, src_i, slab_i, sem.at[gg, 1]).wait()
-        o = offs_ref[i * group + gg]
-        phase = o - (o // _ALIGN) * _ALIGN
-        r0 = phase // _LANES
-        lsh = phase % _LANES
-        lane = jax.lax.broadcasted_iota(jnp.int32, (rows_out, _LANES), 1)
-        for slab, out in ((slab_r, out_r), (slab_i, out_i)):
-            # row shift: dynamic sublane-slice read (dynamic roll along the
-            # sublane axis miscompiles on this backend; lane rolls are fine)
-            s = slab[gg, pl.ds(r0, rows_out + 1), :]
-            al = pltpu.roll(s[:rows_out], -lsh, axis=1)
-            bl = pltpu.roll(s[1 : rows_out + 1], -lsh, axis=1)
-            out[gg] = jnp.where(lane < _LANES - lsh, al, bl)
-
-
-@functools.partial(jax.jit, static_argnums=(3,))
-def _extract_tpu(rr, ri, offsets, wlen: int):
-    k = offsets.shape[0]
-    group = 8 if k % 8 == 0 else (4 if k % 4 == 0 else (2 if k % 2 == 0 else 1))
-    wp = -(-wlen // _ALIGN) * _ALIGN
-    rows_out = wp // _LANES
-    rows_slab = rows_out + 8
-    n = rr.shape[0]
-    # pad the source so every slab fits and the clip bound is exactly
-    # n - wlen (a row starting at the last valid offset stays aligned)
-    n2 = -(-max(n + (wp - wlen) + _ALIGN, wp + _ALIGN) // _ALIGN) * _ALIGN
-    if n2 > n:
-        rr = jnp.pad(rr, (0, n2 - n))
-        ri = jnp.pad(ri, (0, n2 - n))
-    offs = jnp.clip(offsets.astype(jnp.int32), 0, max(n - wlen, 0))
-    src_r = rr.reshape(n2 // _LANES, _LANES)
-    src_i = ri.reshape(n2 // _LANES, _LANES)
-    out_r, out_i = pl.pallas_call(
-        functools.partial(_extract_kernel, rows_out=rows_out, group=group),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(k // group,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec(memory_space=pl.ANY),
-            ],
-            out_specs=(
-                pl.BlockSpec(
-                    (group, rows_out, _LANES),
-                    lambda i, offs: (i, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec(
-                    (group, rows_out, _LANES),
-                    lambda i, offs: (i, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((group, rows_slab, _LANES), jnp.float32),
-                pltpu.VMEM((group, rows_slab, _LANES), jnp.float32),
-                pltpu.SemaphoreType.DMA((group, 2)),
-            ],
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((k, rows_out, _LANES), jnp.float32),
-            jax.ShapeDtypeStruct((k, rows_out, _LANES), jnp.float32),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True,
-        ),
-    )(offs, src_r, src_i)
-    return (
-        out_r.reshape(k, wp)[:, :wlen],
-        out_i.reshape(k, wp)[:, :wlen],
-    )
-
-
-def _extract_fallback(rr, ri, offsets, wlen: int):
+def extract_windows(rr, ri, offsets, wlen: int):
+    """rr/ri (N,) f32 + offsets (K,) int -> ((K, wlen), (K, wlen)) with row k
+    = plane[offset_k : offset_k + wlen] (offsets clipped to [0, N - wlen])."""
     n = rr.shape[0]
 
     def one(o):
@@ -162,16 +35,3 @@ def _extract_fallback(rr, ri, offsets, wlen: int):
         rr = jnp.pad(rr, (0, wlen - n))
         ri = jnp.pad(ri, (0, wlen - n))
     return jax.vmap(one)(offsets.astype(jnp.int32))
-
-
-def extract_windows(rr, ri, offsets, wlen: int):
-    """rr/ri (N,) f32 + offsets (K,) int -> ((K, wlen), (K, wlen)) with row k
-    = plane[offset_k : offset_k + wlen] (offsets clipped to [0, N - wlen])."""
-    from cognitive_radio_network_tpu.utils.platform import effective_platform
-
-    # effective_platform, not default_backend: inside a default_device(cpu)
-    # context (phy_placement="host") the process backend still says "tpu"
-    # but the kernel would launch on the CPU device and fail
-    if effective_platform() == "tpu":
-        return _extract_tpu(rr, ri, offsets, wlen)
-    return _extract_fallback(rr, ri, offsets, wlen)

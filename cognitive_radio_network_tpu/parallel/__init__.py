@@ -1,10 +1,10 @@
 """Scale-out: device meshes, overlap-save halo exchange, sharded pipelines.
 
 Replaces the reference's distributed backend (TCP star + ssh process launch,
-SURVEY.md §2.5) with the TPU-native model: one pjit-ed program over a
-``jax.sharding.Mesh``, in-graph collectives over ICI (``ppermute`` for FIR
-halo exchange, ``psum`` for spectrum reductions), ``jax.distributed`` over
-DCN for multi-host.
+SURVEY.md §2.5) with one pjit-ed program over a ``jax.sharding.Mesh``:
+in-graph collectives between devices (``ppermute`` for FIR halo exchange,
+``psum`` for spectrum reductions, which XLA hands to NCCL on GPUs) and
+``jax.distributed`` for multi-host.
 """
 
 from cognitive_radio_network_tpu.parallel.mesh import make_mesh, MeshSpec

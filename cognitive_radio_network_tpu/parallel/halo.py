@@ -4,7 +4,7 @@ The sequence-parallel analog for streaming DSP (SURVEY.md §2.6, §5
 "long-context"): each time shard processes a contiguous segment of the IQ
 stream; the FIR filter needs the last ``halo`` phase rows of the *previous*
 segment, which flow right-ward between ring neighbors via
-``jax.lax.ppermute`` — the in-graph ICI replacement for liquid-dsp's opaque
+``jax.lax.ppermute`` — the in-graph replacement for liquid-dsp's opaque
 internal streaming state.
 """
 

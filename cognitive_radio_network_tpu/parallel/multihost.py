@@ -1,15 +1,15 @@
-"""Multi-host initialization over DCN.
+"""Multi-host initialization.
 
 The reference scales across hosts by ssh-launching processes and speaking
-raw-struct TCP (SURVEY.md §2.5).  The TPU-native equivalent is
+raw-struct TCP (SURVEY.md §2.5).  The equivalent here is
 ``jax.distributed``: every host runs the same program, global device meshes
 span hosts, and the collectives laid out in :mod:`.halo` / :mod:`.wideband`
-ride ICI within a slice and DCN across slices.
+run over NVLink within a host and the network across hosts.
 
 Usage (every host):
 
     from cognitive_radio_network_tpu.parallel import multihost
-    multihost.initialize()          # env-driven (TPU pods auto-configure)
+    multihost.initialize()          # env-driven
     mesh = multihost.global_mesh(MeshSpec(time=4, channel=2, data=N//8))
 
 Single-process runs (tests, one chip) skip initialization transparently.
@@ -35,8 +35,8 @@ def initialize(
 ) -> None:
     """jax.distributed.initialize with env fallbacks; no-op if single-process.
 
-    On TPU pods all arguments auto-configure; for CPU/GPU fleets pass them or
-    set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID.
+    Pass the arguments or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID (a GPU or CPU fleet does not configure itself).
     """
     global _initialized
     if _initialized:
@@ -47,7 +47,7 @@ def initialize(
     num_processes = num_processes or _int_env("JAX_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("JAX_PROCESS_ID")
     if coordinator_address is None and num_processes is None:
-        # single-process (or TPU auto-config handled inside jax.distributed)
+        # single-process, or a cluster jax.distributed detects itself
         try:
             jax.distributed.initialize()
         except Exception:

@@ -12,7 +12,7 @@ also dedups detections between neighbors.
 
 The per-shard receive is the fused one-dispatch fixed-config block receiver
 (phy/framesync.py::_receive_block_graph) run under ``shard_map``; the only
-cross-shard communication is the single ppermute of the halo — it rides ICI.
+cross-shard communication is the single ppermute of the halo.
 """
 
 from __future__ import annotations
@@ -308,7 +308,7 @@ class ShardedStreamReceiver:
         frame window that overlaps its own segment (one contiguous DMA per
         frame), zero-masks the rest, and a single psum over the time axis
         assembles complete (G, frame_len) windows — the only cross-shard
-        traffic, O(G * frame_len), riding ICI.  Per-device live memory is
+        traffic, O(G * frame_len).  Per-device live memory is
         O(n/d + G * frame_len) instead of the previous full-buffer
         O(n) `decode_at` (round-3 review item #2), and a frame body may
         still span ANY number of shards.  Decodes bit-match `decode_at`:

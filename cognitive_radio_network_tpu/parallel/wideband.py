@@ -6,15 +6,16 @@ pipeline, as one pjit-ed graph over a ('time', 'channel'[, 'data']) mesh:
 
     wide IQ planes (T*M, 2), time-sharded
       -> sharded polyphase channelizer (ppermute halo)     [halo.py]
-      -> per-channel per-cycle energy (VPU reductions), resharded so the
+      -> per-channel per-cycle energy (reductions), resharded so the
          channel axis lies on the 'channel' mesh axis (XLA all_to_all)
       -> global noise-floor estimate across channels (psum via jnp.mean)
       -> per-channel occupancy decisions (energy detector), plus per-channel
          feature rows for the shared-weight MLP classifier
 
-The cross-shard communication is exactly: the (P-1)-row FIR halo over ICI
-neighbors, one all-to-all at the time->channel reshard, and one psum for the
-noise floor — laid out so all of it rides ICI, per the scaling-book recipe.
+The cross-shard communication is exactly: the (P-1)-row FIR halo between
+time neighbors (ppermute), one all-to-all at the time->channel reshard, and
+one psum for the noise floor.  Every card reaches every other at the same
+rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -29,15 +30,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cognitive_radio_network_tpu.parallel.halo import sharded_channelize
 from cognitive_radio_network_tpu.signal.channelizer import polyphase_taps
+from cognitive_radio_network_tpu.signal.fft import matmul
 from cognitive_radio_network_tpu.signal.iq import planes_abs2
-from cognitive_radio_network_tpu.utils.platform import effective_platform
 
 __all__ = [
     "WidebandConfig",
     "wideband_sense",
     "wideband_energy_packed",
     "sharded_wideband_energy_packed",
-    "sharded_wideband_energy_fused",
     "make_wideband_fn",
 ]
 
@@ -63,7 +63,6 @@ def wideband_sense(
     cfg: WidebandConfig,
     *,
     batch_axis: str | None = None,
-    use_fused: bool | None = None,
 ):
     """planes: (T*M, 2) / (B, T*M, 2) wide IQ at rate M * per-channel rate,
     or a planar tuple (xr, xi) of (T*M,) streams (the zero-relayout layout).
@@ -76,12 +75,9 @@ def wideband_sense(
 
     The energy never needs the channelized IQ materialized, so both the
     unbatched time-sharded case and the batched (data-parallel) case route
-    through the lane-packed energy fast path — the fused Pallas kernel on
-    TPU for the unbatched case (:func:`sharded_wideband_energy_fused`,
-    ``use_fused=None`` auto-selects it off-CPU when shapes allow), the
-    packed XLA formulation otherwise.  Only inputs whose per-shard length
-    doesn't divide into whole sense cycles fall back to the materializing
-    channelizer.
+    through the packed energy path (:func:`sharded_wideband_energy_packed`).
+    Only inputs whose per-shard length doesn't divide into whole sense
+    cycles fall back to the materializing channelizer.
     """
     m = cfg.num_channels
     has_channel = "channel" in mesh.axis_names
@@ -96,35 +92,15 @@ def wideband_sense(
         t_total = n_wide // m
         if t_total % (d * cfg.block_len) == 0:
             xr, xi = planes if planar else (planes[..., 0], planes[..., 1])
-            fused_ok = (
-                m == 64
-                and cfg.taps_per_channel == 8
-                and cfg.block_len % 2 == 0
-                and (t_total // d) % 2 == 0
+            energy = sharded_wideband_energy_packed(
+                xr, xi, mesh, cfg, time_axis=t_axis, precision=cfg.precision
             )
-            if use_fused is None:
-                use_fused = fused_ok and effective_platform() not in (
-                    "cpu",
-                    "gpu",
-                )
-            elif use_fused and not fused_ok:
-                raise ValueError("fused path needs M=64, P=8, even block_len")
-            if use_fused:
-                energy = sharded_wideband_energy_fused(
-                    xr, xi, mesh, cfg, time_axis=t_axis,
-                    precision=cfg.precision,
-                )
-            else:
-                energy = sharded_wideband_energy_packed(
-                    xr, xi, mesh, cfg, time_axis=t_axis,
-                    precision=cfg.precision,
-                )
     elif batched_arr and t_axis:
         # data-parallel batch of streams: the same lane-packed energy
         # formulation, batch rows sharded over batch_axis, each row's
         # stream time-sharded with the per-row ppermute FIR halo — the
         # materializing channelizer (12x the FLOPs, channelized IQ in HBM)
-        # is no longer on the training path (round-3 review item #6)
+        # is not on the training path
         dt = mesh.shape[t_axis]
         db = mesh.shape[batch_axis] if batch_axis in mesh.axis_names else 1
         b, n_wide = planes.shape[0], planes.shape[1]
@@ -171,8 +147,8 @@ def _dft_complex_block(m: int) -> jax.Array:
     """(2M, 2M) real matrix computing the length-M DFT of lane-concat
     complex rows:  [yr | yi] = [vr | vi] @ [[Wre, Wim], [-Wim, Wre]].
 
-    Constant-folded by XLA; with M=64 this is a dense, fully-lane-packed
-    128x128 MXU tile — one matmul does the whole complex DFT."""
+    Constant-folded by XLA; with M=64 this is one dense 128x128 matrix —
+    one matmul does the whole complex DFT."""
     ang = -2.0 * np.pi * np.outer(np.arange(m), np.arange(m)) / m
     wre = np.cos(ang).astype(np.float32)
     wim = np.sin(ang).astype(np.float32)
@@ -188,7 +164,7 @@ def _fir_rows(
 
     v_in: (..., T, 2M) rows [xr_phases | xi_phases]; taps (P, M).  Returns
     (..., T, 2M) with v[t, c] = sum_p h[p, c] * v_in[t-p, c] per plane —
-    eight shifted VPU multiply-adds, no matmul.  ``history`` (..., P-1, 2M)
+    eight shifted multiply-adds, no matmul.  ``history`` (..., P-1, 2M)
     seeds the first rows (overlap-save carry; zeros when None)."""
     p = taps.shape[0]
     ax = v_in.ndim - 2  # the phase-row (time) axis
@@ -216,33 +192,26 @@ def wideband_energy_packed(
 ) -> jax.Array:
     """Single-chip fast path: planar wide stream -> per-cycle channel energy.
 
-    Factored polyphase formulation, fully lane-packed: the FIR is P shifted
-    VPU multiply-adds on (T, 2M) rows [vr | vi] (depthwise — the dense
-    (P*M, M) G-matrix of signal/channelizer.py wastes ~PxM/(2M)=4x MXU
+    Factored polyphase formulation on packed rows: the FIR is P shifted
+    multiply-adds on (T, 2M) rows [vr | vi] (depthwise — the dense
+    (P*M, M) G-matrix of signal/channelizer.py wastes ~PxM/(2M)=4x matmul
     FLOPs re-multiplying the window for every output), and the M-point DFT
-    is ONE (T, 2M) @ (2M, 2M) complex-packed matmul (a full 128x128 MXU
-    tile at M=64).  ~14x fewer matmul FLOPs than the fused-G layout that
-    this replaced; energy only (channelized IQ never materialized) — use
+    is ONE (T, 2M) @ (2M, 2M) complex-packed matmul (128x128 at M=64).
+    ~14x fewer matmul FLOPs than the fused-G layout that this replaced;
+    energy only (channelized IQ never materialized) — use
     sharded_channelize when per-channel streams are needed.
 
     xr/xi: (T*M,) float32.  Returns (C, M) with C = T / block_len.
     """
-    from cognitive_radio_network_tpu.signal.channelizer import _PRECISIONS
-
     m = cfg.num_channels
     t_total = xr.shape[0] // m
     if t_total % cfg.block_len:
         raise ValueError(f"T={t_total} must be a multiple of block_len")
-    prec = _PRECISIONS[precision]
-
     v_in = jnp.concatenate(
         [xr.reshape(t_total, m), xi.reshape(t_total, m)], axis=1
     )
     v = _fir_rows(v_in, taps, None)
-    y = jnp.matmul(
-        v, _dft_complex_block(m), precision=prec,
-        preferred_element_type=jnp.float32,
-    )
+    y = matmul(v, _dft_complex_block(m), precision)
     power = y[:, :m] ** 2 + y[:, m:] ** 2
     return power.reshape(t_total // cfg.block_len, cfg.block_len, m).mean(axis=1)
 
@@ -270,10 +239,7 @@ def sharded_wideband_energy_packed(
     Returns (C, M) / (B, C, M) energies, sharded the same way.
     """
     from cognitive_radio_network_tpu.parallel.halo import halo_exchange
-    from cognitive_radio_network_tpu.signal.channelizer import _PRECISIONS
-
     m, p = cfg.num_channels, cfg.taps_per_channel
-    prec = _PRECISIONS[precision]
     taps = jnp.asarray(cfg.taps())
     dft = _dft_complex_block(m)
     batched = xr.ndim == 2
@@ -293,9 +259,7 @@ def sharded_wideband_energy_packed(
         ext = halo_exchange(v_in, p - 1, time_axis, axis=t_ax)
         hist = jax.lax.slice_in_dim(ext, 0, p - 1, axis=t_ax)
         v = _fir_rows(v_in, taps, history=hist)
-        y = jnp.matmul(
-            v, dft, precision=prec, preferred_element_type=jnp.float32
-        )
+        y = matmul(v, dft, precision)
         power = y[..., :m] ** 2 + y[..., m:] ** 2
         return power.reshape(
             *lead, t_local // cfg.block_len, cfg.block_len, m
@@ -309,85 +273,6 @@ def sharded_wideband_energy_packed(
         mesh=mesh,
         in_specs=(spec, spec),
         out_specs=spec,
-        check_vma=False,
-    )(xr, xi)
-
-
-def _pick_tile_q(q_local: int, rows_per_cycle: int, max_tile: int = 2048) -> int:
-    """Largest tile_q <= max_tile that divides q_local and is a multiple of
-    rows_per_cycle (the fused kernel's tiling constraints)."""
-    t = (max_tile // rows_per_cycle) * rows_per_cycle
-    while t >= rows_per_cycle:
-        if q_local % t == 0:
-            return t
-        t -= rows_per_cycle
-    raise ValueError(
-        f"no valid tile_q for q_local={q_local}, rows_per_cycle={rows_per_cycle}"
-    )
-
-
-def sharded_wideband_energy_fused(
-    xr: jax.Array,
-    xi: jax.Array,
-    mesh: Mesh,
-    cfg: WidebandConfig,
-    *,
-    time_axis: str = "time",
-    precision: str = "high",
-    max_tile_q: int = 2048,
-    interpret: bool = False,
-) -> jax.Array:
-    """Time-sharded FUSED energy detector: each shard runs the VMEM-resident
-    Pallas kernel (ops/fused_wideband.py) on its segment; the cross-shard
-    FIR state — the previous shard's last 4 pair rows (8 wide sample times
-    >= the P-1=7 delay taps) — flows between ring neighbors via ONE ppermute
-    and seeds the kernel's tile-0 halo.  Bit-matches the kernel run on the
-    whole stream single-chip; this is BASELINE config 5's sharded pipeline
-    running at the fused kernel's per-chip rate.
-
-    Constraints: M=64, P=8; per-shard length must divide into pair rows and
-    whole sense cycles (T/shards multiple of block_len).
-    """
-    from cognitive_radio_network_tpu.ops.fused_wideband import (
-        wideband_energy_fused,
-    )
-
-    m = cfg.num_channels
-    d = mesh.shape[time_axis]
-    q_local = xr.shape[0] // d // (2 * m)
-    tile_q = _pick_tile_q(q_local, cfg.block_len // 2, max_tile_q)
-    # taps stay host numpy: the kernel folds them into its coefficient-row
-    # constant, and a closed-over device array would arrive as a tracer
-    # inside shard_map
-    taps = np.asarray(cfg.taps(), np.float32)
-
-    def local(xr_l, xi_l):
-        q = xr_l.shape[0] // (2 * m)
-        xr2 = xr_l.reshape(q, 2 * m)
-        xi2 = xi_l.reshape(q, 2 * m)
-        perm = [(i, (i + 1) % d) for i in range(d)]
-        hist_r = jax.lax.ppermute(xr2[-4:], time_axis, perm)
-        hist_i = jax.lax.ppermute(xi2[-4:], time_axis, perm)
-        # shard 0 starts the stream: FIR from rest, not shard d-1's tail
-        start = (jax.lax.axis_index(time_axis) != 0).astype(jnp.float32)
-        return wideband_energy_fused(
-            xr_l,
-            xi_l,
-            taps,
-            cfg,
-            precision=precision,
-            tile_q=tile_q,
-            interpret=interpret,
-            initial_history=(hist_r * start, hist_i * start),
-        )
-
-    from jax import shard_map
-
-    return shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(time_axis), P(time_axis)),
-        out_specs=P(time_axis),
         check_vma=False,
     )(xr, xi)
 

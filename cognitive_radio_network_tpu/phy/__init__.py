@@ -1,4 +1,4 @@
-"""OFDM PHY: the TPU-native ofdmflexframe-equivalent link.
+"""OFDM PHY: the batched ofdmflexframe-equivalent link.
 
 Re-creates the capability of liquid-dsp's ``ofdmflexframegen`` /
 ``ofdmflexframesync`` (the external C library the reference's radio runtime is

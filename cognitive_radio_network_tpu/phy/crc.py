@@ -204,7 +204,7 @@ def crc_check_jnp(scheme: str, data_with_check) -> jnp.ndarray:
 
     Same contract as :func:`crc_validate`, vectorized over leading axes so
     many frames validate in one rx graph.  crc16/crc32 go through the GF(2)
-    matrix (one MXU int8 matmul, exact) instead of a byte-serial scan."""
+    matrix (one int8 matmul, exact) instead of a byte-serial scan."""
     k = crc_sizes(scheme)
     dwc = jnp.asarray(data_with_check, jnp.uint8)
     if k == 0:

@@ -8,7 +8,7 @@ LIQUID_FEC_CONV_V27 (predictive scenario SU link, scenarios/predictive_model.cfg
 Byte-level API mirrors liquid's (encode expands, decode corrects+contracts);
 all codes also have a batched jnp decode for in-graph rx chains — the Viterbi
 decoder is a ``lax.scan`` over time with all 64 states add-compare-selected in
-parallel on the VPU.
+parallel.
 """
 
 from __future__ import annotations
@@ -263,7 +263,7 @@ def viterbi_decode_bits(coded: np.ndarray, n_bits: int) -> np.ndarray:
 def viterbi_decode_jnp(coded_bits: jax.Array, n_bits: int) -> jax.Array:
     """Batched in-graph Viterbi: coded_bits uint8 (..., 2*(n_bits+6)).
 
-    lax.scan over time; per step an (…, 64, 2) add-compare-select on the VPU;
+    lax.scan over time; per step an (…, 64, 2) add-compare-select;
     traceback is a reverse scan over stored selectors.
     """
     ns, out = _conv_tables()

@@ -85,13 +85,12 @@ def demodulate(scheme: str, x: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Hard demod: returns (symbol indices int32, evm per symbol float32).
 
     Min-distance over the constellation — one (..., S, M) reduction the
-    compiler fuses; M <= 256 so this stays VPU-resident.
+    compiler fuses (M <= 256).
     """
     pts = constellation(scheme)
     d2 = jnp.abs(x[..., None] - pts) ** 2
     idx = jnp.argmin(d2, axis=-1).astype(jnp.int32)
-    # the distance at the argmin IS the min — jnp.min is a cheap VPU
-    # reduction, where a take_along_axis gather lowers element-at-a-time
-    # on TPU (measured 6 ms of an 8 ms rx dispatch at 256 frames)
+    # the distance at the argmin IS the min — a reduction, where a
+    # take_along_axis gather would add an index pass
     evm = jnp.min(d2, axis=-1)
     return idx, evm.astype(jnp.float32)

@@ -86,6 +86,9 @@ class ProcessRadioNode:
         env = dict(os.environ)
         for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
             env.setdefault(k, "1")
+        # a user radio runs on the host: it must not open the device that
+        # the parent process holds
+        env["JAX_PLATFORMS"] = "cpu"
         self._proc = subprocess.Popen(
             argv,
             stdin=subprocess.PIPE,

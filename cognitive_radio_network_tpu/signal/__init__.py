@@ -1,4 +1,4 @@
-"""Numerics core: the sensing math of the reference, TPU-first.
+"""Numerics core: the sensing math of the reference, batched.
 
 Everything here is pure-functional JAX, jit/vmap/shard_map friendly, with the
 exact numerical contracts of the reference's CE_Predictive_Node sensing chain

@@ -14,8 +14,8 @@ channel, then squares the sum to get a "power" feature
 Feature vector order matches ``Features_Buffer[1..4] = {NF, CH1, CH2, CH3}``
 (CE_Predictive_Node.cpp:200).
 
-TPU mapping: the band sums are one (..., N) @ (N, 4) matmul with a 0/1
-indicator matrix — an MXU epilogue to the DFT matmuls of
+Device mapping: the band sums are one (..., N) @ (N, 4) matmul with a 0/1
+indicator matrix — an epilogue to the DFT matmuls of
 :mod:`cognitive_radio_network_tpu.signal.fft`.
 """
 

@@ -14,11 +14,11 @@ so channel k is x mixed down from center frequency +k/M * fs and decimated
 by M through the prototype low-pass (unit passband gain: a unit tone at a
 channel center produces a unit-amplitude channel output).
 
-TPU mapping: the FIR and DFT FOLD INTO ONE MATMUL —
+Device mapping: the FIR and DFT FOLD INTO ONE MATMUL —
     y[t, k] = sum_{s,c} G[s*M + c, k] * xp[t - (P-1) + s, c]
 with G[s*M+c, k] = W_M^{ck} * h[P-1-s, c], i.e. overlapping (P*M)-wide
 frames of the phase rows times a constant (P*M, M) matrix: four real
-(T, P*M) @ (P*M, M) MXU matmuls (real/imag split), no per-phase shift
+(T, P*M) @ (P*M, M) matmuls (real/imag split), no per-phase shift
 stack, no complex FFT.  The only cross-block state is the last P-1 phase
 rows, which is exactly what :func:`parallel.halo.halo_exchange` passes
 between time shards.
@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from cognitive_radio_network_tpu.signal import filters
+from cognitive_radio_network_tpu.signal.fft import matmul
 
 __all__ = ["polyphase_taps", "channelize", "channelize_planes"]
 
@@ -41,13 +42,6 @@ def polyphase_taps(num_channels: int, taps_per_channel: int = 8) -> np.ndarray:
     """(P, M) float32 phase-decomposed prototype low-pass."""
     proto = filters.channelizer_prototype(num_channels, taps_per_channel)
     return proto.reshape(taps_per_channel, num_channels)
-
-
-_PRECISIONS = {
-    "highest": jax.lax.Precision.HIGHEST,
-    "high": jax.lax.Precision.HIGH,
-    "default": jax.lax.Precision.DEFAULT,
-}
 
 
 def _fir_dft_matrices(taps: jax.Array) -> tuple[jax.Array, jax.Array]:
@@ -74,13 +68,12 @@ def _frames(rows: jax.Array, p: int) -> jax.Array:
 
 def _channelize_rows(xr, xi, taps, history_r, history_i, precision):
     p, m = taps.shape
-    prec = _PRECISIONS[precision]
     gre, gim = _fir_dft_matrices(taps)
     fr = _frames(jnp.concatenate([history_r, xr], axis=-2), p)
     fi = _frames(jnp.concatenate([history_i, xi], axis=-2), p)
 
     def mm(a, b):
-        return jnp.matmul(a, b, precision=prec, preferred_element_type=jnp.float32)
+        return matmul(a, b, precision)
 
     yre = mm(fr, gre) - mm(fi, gim)
     yim = mm(fr, gim) + mm(fi, gre)

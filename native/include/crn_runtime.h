@@ -1,6 +1,6 @@
 /* crn_runtime — native runtime library for cognitive_radio_network_tpu.
  *
- * TPU-native equivalents of the reference's C++ runtime units
+ * Native equivalents of the reference's C++ runtime units
  * (0xastro/Cognitive-Radio-Network, mounted read-only at /root/reference):
  *
  *  - IQ stream loader   <- the UHD recv loop + rx buffering of
@@ -43,7 +43,7 @@ uint32_t crn_version(void);
  * File format: raw interleaved float32 I/Q pairs (8 bytes per sample),
  * matching io/iq.py's IQWriter.  The stream mmaps the capture, and a
  * prefetch thread stages fixed-size blocks into a slab ring so the host
- * loop (feeding the TPU) never waits on page faults.
+ * loop (feeding the device) never waits on page faults.
  */
 
 typedef struct crn_iq_stream crn_iq_stream;

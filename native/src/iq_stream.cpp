@@ -1,16 +1,16 @@
 // IQ stream loader: mmap'd recorded-IQ capture + slab ring + prefetch thread.
 //
 // Ring slots store PLANAR I/Q (all I samples, then all Q): captures are
-// interleaved pairs on disk (the de-facto SDR layout), but the TPU consumes
-// planar planes (signal/iq.py — de-interleaving on-device is a strided HBM
-// transpose costing as much as the sense kernel), so the producer thread
+// interleaved pairs on disk (the de-facto SDR layout), but the device consumes
+// planar planes (signal/iq.py — de-interleaving on-device is an extra pass
+// over the input), so the producer thread
 // de-interleaves during the staging copy, hiding the cost off the hot path.
 //
 // Native analog of the reference's rx hot loop
 // (src/extensible_cognitive_radio.cpp:1258-1382): where the reference calls
 // usrp->recv() into a per-packet buffer on a dedicated rx worker thread, we
 // stage fixed-size blocks of a recorded capture into a single-producer /
-// single-consumer ring so the Python host loop that feeds the TPU never
+// single-consumer ring so the Python host loop that feeds the device never
 // blocks on file I/O.  Slab allocation: one contiguous arena for all ring
 // slots, allocated once at open (no per-block malloc in the hot path).
 

@@ -9,6 +9,7 @@ distributed run against the in-process ScenarioRuntime on the same scenario
 """
 
 import json
+import os
 import threading
 
 import numpy as np
@@ -475,7 +476,6 @@ class TestSshLaunch:
         repo = _P(__file__).resolve().parent.parent
         remote_home = tmp_path / "remote_home"
         remote_home.mkdir()
-        cache = _P("~/.cache/crn_tpu_xla").expanduser()  # deployment var
         stub = tmp_path / "fake_ssh_isolated"
         stub.write_text(
             "#!/bin/sh\n"
@@ -485,7 +485,7 @@ class TestSshLaunch:
             'echo "CRN_REMOTE_CWD $(pwd)"\n'
             'echo "CRN_REMOTE_ENVCOUNT $(env -i env | wc -l)"\n'
             f"exec env -i HOME={remote_home} PATH=/usr/bin:/bin "
-            f"PYTHONPATH={repo} CRN_COMPILE_CACHE={cache} "
+            f"PYTHONPATH={repo} "
             'sh -c "$2"\n'
         )
         stub.chmod(0o755)
@@ -592,3 +592,23 @@ class TestPipelinedProduceAccounting:
                 ctl.summaries[i]["tx_samples"],
                 expect,
             )
+
+
+@pytest.mark.parametrize("placement", ["host", "device"])
+def test_node_processes_and_the_device(monkeypatch, placement):
+    """One process per card: host-placed node processes launch with
+    JAX_PLATFORMS=cpu; device-placed ones refuse to start unless each has
+    a share of device memory, and then keep the default platform."""
+    monkeypatch.delenv("XLA_PYTHON_CLIENT_MEM_FRACTION", raising=False)
+    cfg = _two_node_scenario()
+    cfg.phy_placement = placement
+    if placement == "device":
+        with pytest.raises(ValueError, match="XLA_PYTHON_CLIENT_MEM_FRACTION"):
+            NetController(cfg, port=0)
+        monkeypatch.setenv("XLA_PYTHON_CLIENT_MEM_FRACTION", "0.3")
+    env = NetController(cfg, port=0)._node_env()
+    if placement == "host":
+        assert env["JAX_PLATFORMS"] == "cpu"
+    else:
+        assert env["XLA_PYTHON_CLIENT_MEM_FRACTION"] == "0.3"
+        assert env.get("JAX_PLATFORMS") == os.environ.get("JAX_PLATFORMS")

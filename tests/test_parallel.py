@@ -197,40 +197,95 @@ class TestPackedWidebandEnergy:
             np.asarray(sharded), np.asarray(single), rtol=1e-6, atol=1e-9
         )
 
-    def test_sharded_fused_equals_single_fused(self, rng):
-        """The FUSED Pallas kernel under shard_map (one 4-pair-row ppermute
-        carrying the cross-shard FIR state into tile 0's halo) equals the
-        kernel run on the whole stream — the shard seams are exact."""
+    def test_selected_wideband_matches_numpy_oracle(self, rng):
+        """make_wideband_fn (the one wideband path) at M=64 on a
+        one-device mesh equals the independent numpy transliteration."""
+        import jax
+        import jax.numpy as jnp
+
+        from chip_gates import wideband_energy_numpy
+        from cognitive_radio_network_tpu.parallel.wideband import (
+            WidebandConfig,
+            make_wideband_fn,
+        )
+
+        cfg = WidebandConfig(precision="highest")
+        t_total = 8 * cfg.block_len
+        planes = rng.standard_normal((t_total * 64, 2)).astype(np.float32)
+        mesh = make_mesh(MeshSpec(), jax.devices()[:1])
+        got = make_wideband_fn(mesh, cfg)(jnp.asarray(planes))["energy"]
+        want = wideband_energy_numpy(planes[:, 0], planes[:, 1], cfg.taps(), cfg)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-9)
+
+    def test_sharded_packed_history_seam(self, rng):
+        """On 4 devices every shard after the first starts its FIR from the
+        previous shard's tail (a nonzero seam carried by ppermute): each
+        shard's energies equal the history-seeded numpy oracle."""
         import jax
         import jax.numpy as jnp
         from jax.sharding import Mesh
 
-        from cognitive_radio_network_tpu.ops.fused_wideband import (
-            wideband_energy_fused,
-        )
+        from chip_gates import wideband_energy_numpy
         from cognitive_radio_network_tpu.parallel.wideband import (
             WidebandConfig,
-            sharded_wideband_energy_fused,
+            sharded_wideband_energy_packed,
         )
-        from cognitive_radio_network_tpu.signal.channelizer import polyphase_taps
 
-        cfg = WidebandConfig()  # M=64, P=8, block_len=128
-        t_total = 16 * cfg.block_len  # 4 cycles per shard on 4 devices
-        xr = jnp.asarray(rng.standard_normal(t_total * 64).astype(np.float32))
-        xi = jnp.asarray(rng.standard_normal(t_total * 64).astype(np.float32))
-        taps = jnp.asarray(polyphase_taps(64, 8))
-        single = wideband_energy_fused(
-            xr, xi, taps, cfg, precision="highest", tile_q=256, interpret=True
+        cfg = WidebandConfig()
+        m, shards = cfg.num_channels, 4
+        seg = 2 * cfg.block_len * m  # wide samples per shard
+        xr = rng.standard_normal(shards * seg).astype(np.float32)
+        xi = rng.standard_normal(shards * seg).astype(np.float32)
+        mesh = Mesh(np.array(jax.devices()[:shards]), ("time",))
+        got = np.asarray(
+            jax.jit(
+                lambda a, b: sharded_wideband_energy_packed(
+                    a, b, mesh, cfg, precision="highest"
+                )
+            )(jnp.asarray(xr), jnp.asarray(xi))
+        ).reshape(shards, -1, m)
+        taps = cfg.taps()
+        for k in range(shards):
+            body = slice(k * seg, (k + 1) * seg)
+            hist = None if k == 0 else (xr[:body.start], xi[:body.start])
+            want = wideband_energy_numpy(xr[body], xi[body], taps, cfg, hist)
+            np.testing.assert_allclose(got[k], want, rtol=1e-5, atol=1e-9)
+        # the seam matters: the rest-from-zero oracle differs on shard 1
+        rest = wideband_energy_numpy(xr[seg : 2 * seg], xi[seg : 2 * seg], taps, cfg)
+        assert not np.allclose(got[1], rest, rtol=1e-5, atol=1e-9)
+
+    @pytest.mark.parametrize(
+        "precision, marker",
+        [
+            ("highest", "operand_precision={highest,highest}"),
+            ("high", "bf16["),
+            ("default", "bf16["),
+        ],
+    )
+    def test_precision_survives_partitioning(self, precision, marker):
+        """The 64-channel wideband program on a (time=2, channel=2) mesh keeps
+        each precision name's arithmetic after XLA partitions it (a
+        DotAlgorithmPreset is dropped there, and a GPU then runs TF32)."""
+        import jax
+        import jax.numpy as jnp
+
+        from cognitive_radio_network_tpu.parallel.wideband import (
+            WidebandConfig,
+            make_wideband_fn,
         )
-        mesh = Mesh(np.array(jax.devices()[:4]).reshape(4), ("time",))
-        sharded = jax.jit(
-            lambda a, b: sharded_wideband_energy_fused(
-                a, b, mesh, cfg, precision="highest", interpret=True
-            )
-        )(xr, xi)
-        np.testing.assert_allclose(
-            np.asarray(sharded), np.asarray(single), rtol=1e-6, atol=1e-9
-        )
+
+        cfg = WidebandConfig(precision=precision)
+        mesh = make_mesh(MeshSpec(time=2, channel=2))
+        planes = jnp.zeros((4 * cfg.block_len * 64, 2), jnp.float32)
+        text = make_wideband_fn(mesh, cfg).lower(planes).compile().as_text()
+        dots = [ln for ln in text.splitlines() if " dot(" in ln]
+        assert dots
+        if precision == "highest":
+            assert all(marker in ln for ln in dots), dots
+        else:
+            # the bf16 rounding of the operands is in the partitioned
+            # program (a CPU then runs the dot itself in f32)
+            assert marker in text and "operand_precision" not in text
 
     def test_wideband_sense_routes_energy_fast_path(self, rng):
         """wideband_sense's unbatched time-sharded case (packed fast path,
